@@ -12,11 +12,9 @@ import jax
 
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.join(os.path.dirname(os.path.dirname(
-                      os.path.abspath(__file__))), "tests", ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 2)
+from cafempc.utils.platform import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 import dataclasses
 import time
@@ -24,11 +22,11 @@ import time
 import jax.numpy as jnp
 import numpy as np
 
-from cafempc_tpu.problems import barrel_roll as br
-from cafempc_tpu.solver.hsddp import make_solver
-from cafempc_tpu.solver.options import load_solver_options
-from cafempc_tpu.solver.plan import host_plan_to_device
-from cafempc_tpu.viz import plots
+from cafempc.problems import barrel_roll as br
+from cafempc.solver.hsddp import make_solver
+from cafempc.solver.options import load_solver_options
+from cafempc.solver.plan import host_plan_to_device
+from cafempc.viz import plots
 
 SETTINGS = "/root/reference/MHPC/MHPC-Trajopt/BarrelRoll/setting"
 

@@ -19,11 +19,9 @@ import jax
 
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.join(os.path.dirname(os.path.dirname(
-                      os.path.abspath(__file__))), "tests", ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 2)
+from cafempc.utils.platform import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 import dataclasses
 import time
@@ -31,13 +29,13 @@ import time
 import jax.numpy as jnp
 import numpy as np
 
-from cafempc_tpu.problems import mhpc_problem as mp
-from cafempc_tpu.reference.quad_reference import (QuadReference,
-                                                  load_quad_reference,
-                                                  wb_state_ref_at)
-from cafempc_tpu.solver.hsddp import make_solver
-from cafempc_tpu.solver.options import load_solver_options
-from cafempc_tpu.solver.plan import host_plan_to_device
+from cafempc.problems import mhpc_problem as mp
+from cafempc.reference.quad_reference import (QuadReference,
+                                              load_quad_reference,
+                                              wb_state_ref_at)
+from cafempc.solver.hsddp import make_solver
+from cafempc.solver.options import load_solver_options
+from cafempc.solver.plan import host_plan_to_device
 
 REF = "/root/reference"
 WINDOWS = {
@@ -92,8 +90,8 @@ def main():
           f"success {bool(s.success)}")
 
     if args.publish:
-        from cafempc_tpu.comms.udpm import LCMEndpoint
-        from cafempc_tpu.viz.plots import publish_wb_traj
+        from cafempc.comms.udpm import LCMEndpoint
+        from cafempc.viz.plots import publish_wb_traj
         ep = LCMEndpoint()
         publish_wb_traj(ep, Xbar[wb], np.asarray(plan_np.knot.active)[wb],
                         cfg.dt_wb,

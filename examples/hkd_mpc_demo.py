@@ -12,43 +12,32 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import jax
 
-jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
-
-import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
 
-from cafempc_tpu.models import hkd
-from cafempc_tpu.problems import hkd_problem as hp
-from cafempc_tpu.reference.quad_reference import (QuadReference,
-                                                  load_quad_reference)
-from cafempc_tpu.runtime.mpc import HKDMPCRuntime
-from cafempc_tpu.solver.options import load_solver_options
-from cafempc_tpu.viz import plots
-
-REF = "/root/reference"
+from cafempc.data import GAITS, hkd_reference
+from cafempc.models import hkd
+from cafempc.problems import hkd_problem as hp
+from cafempc.reference.quad_reference import QuadReference
+from cafempc.runtime.mpc import HKDMPCRuntime
+from cafempc.solver.options import SolverOptions
+from cafempc.viz import plots
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--gait", default="pace")
+    ap.add_argument("--gait", default="pace", choices=sorted(GAITS))
     ap.add_argument("--steps", type=int, default=15)
     ap.add_argument("--out", default="/tmp/hkd_mpc_demo")
     args = ap.parse_args()
     os.makedirs(args.out, exist_ok=True)
 
-    ref = load_quad_reference(
-        f"{REF}/Reference/Data/{args.gait}/quad_reference.csv",
-        reorder=True)
-    qr = QuadReference(ref)
+    qr = QuadReference(hkd_reference(args.gait))
     qr.initialize(0.6)
     cfg = hp.HKDConfig()
-    cfg = hp.load_hkd_constraint_params(
-        f"{REF}/HKDMPC/settings/constraint_params.info", cfg)
-    opts = load_solver_options(f"{REF}/HKDMPC/settings/ddp_setting.info")
-    opts = dataclasses.replace(opts, max_DDP_iter=6, max_AL_iter=3)
+    opts = SolverOptions(max_DDP_iter=6, max_AL_iter=3)
     rt = HKDMPCRuntime(qr, cfg, opts)
 
     body = np.zeros(12)

@@ -24,7 +24,7 @@ def main():
     ap.add_argument("--max-ddp", type=int, default=None)
     args = ap.parse_args()
 
-    from cafempc_tpu.problems import loco_problem as lp
+    from cafempc.problems import loco_problem as lp
     s, plan, meta, qr = lp.solve_loco_to(
         plan_dur=args.plan_dur, gait=args.gait,
         max_AL_iter=args.max_al, max_DDP_iter=args.max_ddp)

@@ -10,6 +10,8 @@ version of testTrajOptInLoop.
 
 Run: python examples/two_process_hkd_mpc.py [--steps 20]
 (forks the MPC server as a child process; requires multicast loopback).
+The MPC server takes JAX's default backend (the GPU where there is one);
+the stand-in robot stays on the CPU, so only one process opens the card.
 """
 import argparse
 import os as _os
@@ -22,37 +24,34 @@ _sys.path.insert(0, _os.path.dirname(_os.path.dirname(
 
 import numpy as np
 
-GAIT = "/root/reference/Reference/Data/bound/quad_reference.csv"
 PLAN_DUR = 0.4
 N_MAX = 48
 DT_SIM = 0.01
 NSTEPS_MPC = 2
 
 
-def _jax_cpu():
+def _jax(cpu):
     import jax
-    jax.config.update("jax_platforms", "cpu")
+    if cpu:
+        jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
-    jax.config.update("jax_compilation_cache_dir", _os.path.join(
-        _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))),
-        "tests", ".jax_cache"))
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 2)
+    from cafempc.utils.platform import enable_compile_cache
+    enable_compile_cache()
     return jax
 
 
 def run_mpc(max_msgs=None):
     """MPC process: hkd_data in -> solve -> hkd_command out."""
-    _jax_cpu()
+    _jax(cpu=False)
     import jax.numpy as jnp
-    from cafempc_tpu.comms.udpm import LCMEndpoint
-    from cafempc_tpu.problems import hkd_problem as hp
-    from cafempc_tpu.reference.quad_reference import (QuadReference,
-                                                      load_quad_reference)
-    from cafempc_tpu.runtime.mpc import HKDMPCRuntime
-    from cafempc_tpu.solver.options import SolverOptions
+    from cafempc.comms.udpm import LCMEndpoint
+    from cafempc.data import hkd_reference
+    from cafempc.problems import hkd_problem as hp
+    from cafempc.reference.quad_reference import QuadReference
+    from cafempc.runtime.mpc import HKDMPCRuntime
+    from cafempc.solver.options import SolverOptions
 
-    qr = QuadReference(load_quad_reference(GAIT, reorder=True))
+    qr = QuadReference(hkd_reference("bound"))
     qr.initialize(PLAN_DUR)
     cfg = hp.HKDConfig(plan_duration=PLAN_DUR, n_steps_max=N_MAX,
                        dt_sim=DT_SIM, nsteps_between_mpc=NSTEPS_MPC)
@@ -68,12 +67,12 @@ def run_mpc(max_msgs=None):
 def run_sim(n_mpc_steps):
     """Robot stand-in: publish state, apply received command tape by
     integrating the HKD dynamics (controls + state feedback)."""
-    _jax_cpu()
+    _jax(cpu=True)
     import jax
     import jax.numpy as jnp
-    from cafempc_tpu.comms import lcm_wire as w
-    from cafempc_tpu.comms.udpm import LCMEndpoint
-    from cafempc_tpu.models import hkd
+    from cafempc.comms import lcm_wire as w
+    from cafempc.comms.udpm import LCMEndpoint
+    from cafempc.models import hkd
 
     step = jax.jit(hkd.dynamics)
 

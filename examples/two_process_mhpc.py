@@ -35,16 +35,13 @@ def _jax_cpu():
     import jax
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
-    jax.config.update("jax_compilation_cache_dir", _os.path.join(
-        _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))),
-        "tests", ".jax_cache"))
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 2)
+    from cafempc.utils.platform import enable_compile_cache
+    enable_compile_cache()
     return jax
 
 
 def _make_cfg():
-    from cafempc_tpu.problems import mhpc_problem as mp
+    from cafempc.problems import mhpc_problem as mp
     return mp.MHPCConfig(plan_dur_wb=PLAN_DUR_WB, plan_dur_srb=PLAN_DUR_SRB,
                          n_steps_max=N_MAX, wb_block=WB_BLOCK,
                          dt_mpc=DT_MPC, dt_wb=DT_WB)
@@ -54,11 +51,11 @@ def run_mpc(max_msgs=None):
     """MPC process: MHPC_Data in -> cascaded solve -> MHPC_COMMAND out."""
     _jax_cpu()
     import jax.numpy as jnp
-    from cafempc_tpu.comms.udpm import LCMEndpoint
-    from cafempc_tpu.reference.quad_reference import (QuadReference,
-                                                      load_quad_reference)
-    from cafempc_tpu.runtime.mhpc_runtime import MHPCRuntime
-    from cafempc_tpu.solver.options import SolverOptions
+    from cafempc.comms.udpm import LCMEndpoint
+    from cafempc.reference.quad_reference import (QuadReference,
+                                                  load_quad_reference)
+    from cafempc.runtime.mhpc_runtime import MHPCRuntime
+    from cafempc.solver.options import SolverOptions
 
     qr = QuadReference(load_quad_reference(GAIT))
     qr.initialize(0.4)
@@ -77,12 +74,12 @@ def run_sim(n_mpc_steps):
     _jax_cpu()
     import jax
     import jax.numpy as jnp
-    from cafempc_tpu.comms import lcm_wire as w
-    from cafempc_tpu.comms.udpm import LCMEndpoint
-    from cafempc_tpu.models import wbm
-    from cafempc_tpu.reference.quad_reference import (QuadReference,
-                                                      load_quad_reference,
-                                                      wb_state_ref_at)
+    from cafempc.comms import lcm_wire as w
+    from cafempc.comms.udpm import LCMEndpoint
+    from cafempc.models import wbm
+    from cafempc.reference.quad_reference import (QuadReference,
+                                                  load_quad_reference,
+                                                  wb_state_ref_at)
 
     model = wbm.load_model()
     step = jax.jit(lambda x, u, c: wbm.dynamics(model, x, u, DT_WB, c)[0])

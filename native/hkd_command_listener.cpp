@@ -5,7 +5,7 @@
 //
 // The type hash is recomputed here from the schema spec (lcmgen's struct
 // hash), so a successful decode demonstrates wire + schema parity between
-// the Python publisher (cafempc_tpu/comms/lcm_wire.py) and a native C++
+// the Python publisher (cafempc/comms/lcm_wire.py) and a native C++
 // consumer.
 //
 // Build: make -C native hkd_command_listener

@@ -1,6 +1,6 @@
 // Native LCM-UDPM transport: UDP-multicast pub/sub with the LCM datagram
 // framing (LC02 short / LC03 fragmented), exposed through a C API consumed
-// from Python via ctypes (cafempc_tpu/comms/native.py).
+// from Python via ctypes (cafempc/comms/native.py).
 //
 // This is the performance-critical host-side bridge of the MPC runtime —
 // the counterpart of the reference's use of liblcm for the 50 Hz

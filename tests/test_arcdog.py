@@ -6,7 +6,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from cafempc_tpu.models import rbda, wbm
+from cafempc.models import rbda, wbm
 
 
 @pytest.fixture(scope="module")
@@ -59,7 +59,7 @@ def test_arcdog_dynamics_fd(arcdog, rng):
 def test_arcdog_reference_generation(arcdog):
     """gen_regular_arcdog.py analogue: trot at z=0.36, swing 0.15, with
     arcdog IK; verify FK consistency and model-derived stance GRF."""
-    from cafempc_tpu.reference.generator import G, generate_reference
+    from cafempc.reference.generator import G, generate_reference
     d = generate_reference(gait_name="trot", duration=1.0, vx=0.5,
                            z_des=0.36, swing_height=0.15,
                            transition_time=0.5, model=arcdog)

@@ -16,10 +16,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cafempc_tpu.problems import barrel_roll as br
-from cafempc_tpu.solver.hsddp import make_solver
-from cafempc_tpu.solver.options import load_solver_options
-from cafempc_tpu.solver.plan import host_plan_to_device
+from cafempc.problems import barrel_roll as br
+from cafempc.solver.hsddp import make_solver
+from cafempc.solver.options import load_solver_options
+from cafempc.solver.plan import host_plan_to_device
 
 SETTINGS = "/root/reference/MHPC/MHPC-Trajopt/BarrelRoll/setting"
 

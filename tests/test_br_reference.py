@@ -21,13 +21,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cafempc_tpu.problems import mhpc_problem as mp
-from cafempc_tpu.reference.quad_reference import (QuadReference,
-                                                  load_quad_reference,
-                                                  wb_state_ref_at)
-from cafempc_tpu.solver.hsddp import make_solver
-from cafempc_tpu.solver.options import load_solver_options
-from cafempc_tpu.solver.plan import host_plan_to_device
+from cafempc.problems import mhpc_problem as mp
+from cafempc.reference.quad_reference import (QuadReference,
+                                              load_quad_reference,
+                                              wb_state_ref_at)
+from cafempc.solver.hsddp import make_solver
+from cafempc.solver.options import load_solver_options
+from cafempc.solver.plan import host_plan_to_device
 
 REF = "/root/reference"
 

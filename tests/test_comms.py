@@ -3,7 +3,7 @@ and UDP multicast pub/sub loopback (incl. fragmentation)."""
 import numpy as np
 import pytest
 
-from cafempc_tpu.comms import lcm_wire as w
+from cafempc.comms import lcm_wire as w
 
 
 def test_all_types_roundtrip():
@@ -44,7 +44,7 @@ def test_hash_stability_and_uniqueness():
 
 
 def test_udpm_loopback():
-    from cafempc_tpu.comms.udpm import LCMEndpoint, UDPMulticast
+    from cafempc.comms.udpm import LCMEndpoint, UDPMulticast
     try:
         ep = LCMEndpoint(UDPMulticast(("239.255.76.67", 7667)))
     except OSError:
@@ -69,7 +69,7 @@ def test_udpm_loopback():
 
 
 def test_udpm_fragmentation_loopback():
-    from cafempc_tpu.comms.udpm import LCMEndpoint, UDPMulticast
+    from cafempc.comms.udpm import LCMEndpoint, UDPMulticast
     try:
         ep = LCMEndpoint(UDPMulticast(("239.255.76.67", 7667)))
     except OSError:
@@ -101,8 +101,8 @@ def test_udpm_fragmentation_loopback():
 def test_native_transport_interop():
     """C++ transport <-> python transport round trip."""
     try:
-        from cafempc_tpu.comms.native import NativeUDPMulticast
-        from cafempc_tpu.comms.udpm import UDPMulticast
+        from cafempc.comms.native import NativeUDPMulticast
+        from cafempc.comms.udpm import UDPMulticast
         nat = NativeUDPMulticast()
         py = UDPMulticast()
     except Exception:

@@ -5,11 +5,11 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from cafempc_tpu.models import wbm
-from cafempc_tpu.problems import mhpc_problem as mp
-from cafempc_tpu.reference.quad_reference import (QuadReference,
-                                                  load_quad_reference,
-                                                  wb_state_ref_at)
+from cafempc.models import wbm
+from cafempc.problems import mhpc_problem as mp
+from cafempc.reference.quad_reference import (QuadReference,
+                                              load_quad_reference,
+                                              wb_state_ref_at)
 
 GAIT = "/root/reference/Reference/Data/trot/dynfeas/quad_reference.csv"
 

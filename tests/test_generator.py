@@ -9,16 +9,16 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from cafempc_tpu.models import hkd, rbda, wbm
-from cafempc_tpu.problems import hkd_problem as hp
-from cafempc_tpu.reference import gait as gait_mod
-from cafempc_tpu.reference.generator import (generate_reference,
-                                             write_quad_reference_csv)
-from cafempc_tpu.reference.quad_reference import (QuadReference,
-                                                  load_quad_reference)
-from cafempc_tpu.solver.hsddp import make_solver
-from cafempc_tpu.solver.options import SolverOptions
-from cafempc_tpu.solver.plan import host_plan_to_device
+from cafempc.models import hkd
+from cafempc.problems import hkd_problem as hp
+from cafempc.reference import gait as gait_mod
+from cafempc.reference.generator import (generate_reference,
+                                         write_quad_reference_csv)
+from cafempc.reference.quad_reference import (QuadReference,
+                                              load_quad_reference)
+from cafempc.solver.hsddp import make_solver
+from cafempc.solver.options import SolverOptions
+from cafempc.solver.plan import host_plan_to_device
 
 
 def test_gait_schedule_periodicity():
@@ -30,14 +30,20 @@ def test_gait_schedule_periodicity():
     assert np.array_equal(contacts[2], [0, 1, 1, 0])   # FR-HL
 
 
+def _hkd_feet(d, k):
+    """World foot positions of record k through the HKD leg FK (urdf leg
+    order FL,FR,HL,HR -> Cheetah-Software legs 1,0,3,2)."""
+    pos, eul = d.body_state[k][:3], d.body_state[k][3:6]
+    return np.concatenate([
+        np.asarray(hkd.foot_position(jnp.asarray(pos), jnp.asarray(eul),
+                                     jnp.asarray(d.qJ[k][3 * l:3 * l + 3]),
+                                     (1, 0, 3, 2)[l])) for l in range(4)])
+
+
 def test_generated_reference_ik_consistency():
     d = generate_reference("trot", duration=1.0, vx=0.3)
-    m = wbm.load_model()
     for k in (0, 40, 80):
-        q = jnp.concatenate([jnp.asarray(d.body_state[k][:6]),
-                             jnp.asarray(d.qJ[k])])
-        pf = np.asarray(rbda.foot_kinematics(m, q)).reshape(12)
-        assert np.abs(pf - d.foot_placements[k]).max() < 1e-8
+        assert np.abs(_hkd_feet(d, k) - d.foot_placements[k]).max() < 1e-8
 
 
 def test_csv_roundtrip():
@@ -92,7 +98,7 @@ def test_hkd_solve_on_generated_trot():
 def test_barrel_roll_reference_generation():
     """Acrobatic generator (barrel_roll.py analogue): ballistic flight,
     full roll, csv round-trip."""
-    from cafempc_tpu.reference.acrobatic import (
+    from cafempc.reference.acrobatic import (
         generate_barrel_roll_reference, projectile_z, projectile_vz)
     d = generate_barrel_roll_reference(pre_stance=0.3, flight=0.4,
                                        post_stance=0.3)
@@ -126,7 +132,7 @@ def test_barrel_roll_reference_generation():
 def test_run_jump_reference_generation():
     """Acrobatic generator (gen_run_jump.py analogue): composed bound +
     stretched-flight jump schedule, CoM z constant, contacts consistent."""
-    from cafempc_tpu.reference.acrobatic import generate_run_jump_reference
+    from cafempc.reference.acrobatic import generate_run_jump_reference
     d = generate_run_jump_reference(n_bounds_before=2, n_bounds_after=2,
                                     vx=1.0)
     # constant reference height, forward progress
@@ -149,11 +155,6 @@ def test_run_jump_reference_generation():
     assert max(flights) > 0.3
     assert sum(1 for f in flights if f > 0.3) == 1
     # IK consistency at a mid-trajectory stance knot
-    from cafempc_tpu.models import rbda, wbm
-    m = wbm.load_model()
     ks = np.where(c == 4)[0]
     k = int(ks[len(ks) // 2])
-    q = jnp.concatenate([jnp.asarray(d.body_state[k][:6]),
-                         jnp.asarray(d.qJ[k])])
-    pf = np.asarray(rbda.foot_kinematics(m, q)).reshape(12)
-    assert np.abs(pf - d.foot_placements[k]).max() < 1e-6
+    assert np.abs(_hkd_feet(d, k) - d.foot_placements[k]).max() < 1e-6

@@ -8,7 +8,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cafempc_tpu.models import hkd
+from cafempc.models import hkd
 
 TOL = 1e-10
 
@@ -157,7 +157,7 @@ def test_touchdown_height_partials_match_ad(rng):
 def test_analytic_partials_match_ad(rng):
     """Closed-form dynamics_partials == jacfwd partials at random states."""
     import jax.numpy as jnp
-    from cafempc_tpu.models import hkd
+    from cafempc.models import hkd
     for trial in range(5):
         x = jnp.asarray(rng.normal(size=24) * 0.5)
         u = jnp.asarray(rng.normal(size=24) * 2.0)

@@ -7,26 +7,22 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cafempc_tpu.models import hkd
-from cafempc_tpu.problems import hkd_problem as hp
-from cafempc_tpu.reference.quad_reference import (QuadReference,
-                                                  load_quad_reference)
-from cafempc_tpu.solver.hsddp import make_solver
-from cafempc_tpu.solver.options import load_solver_options
-from cafempc_tpu.solver.plan import host_plan_to_device
+from cafempc.data import hkd_reference
+from cafempc.models import hkd
+from cafempc.problems import hkd_problem as hp
+from cafempc.reference.quad_reference import QuadReference
+from cafempc.solver.hsddp import make_solver
+from cafempc.solver.options import SolverOptions
+from cafempc.solver.plan import host_plan_to_device
 
-REF_DATA = "/root/reference/Reference/Data"
-REF_SETTINGS = "/root/reference/HKDMPC/settings"
+# iteration caps under which the 0.6 s bound solve converges
+OPTS = SolverOptions(max_DDP_iter=20, max_AL_iter=6)
 
 
 def build(gait="bound", plan_dur=0.6):
-    ref = load_quad_reference(f"{REF_DATA}/{gait}/quad_reference.csv",
-                              reorder=True)
-    qr = QuadReference(ref)
+    qr = QuadReference(hkd_reference(gait))
     qr.initialize(plan_dur)
     cfg = hp.HKDConfig(plan_duration=plan_dur)
-    cfg = hp.load_hkd_constraint_params(
-        f"{REF_SETTINGS}/constraint_params.info", cfg)
     plan_np, pen_np, Xbar0, Ubar0, meta = hp.build_hkd_plan(qr, cfg)
     plan = host_plan_to_device(plan_np, dtype=jnp.float64)
     pen = hp.pen_to_device(pen_np, dtype=jnp.float64)
@@ -43,7 +39,7 @@ def build(gait="bound", plan_dur=0.6):
 @pytest.fixture(scope="module")
 def solved():
     plan, pen, x0, Xb, Ub, meta = build()
-    opts = load_solver_options(f"{REF_SETTINGS}/ddp_setting.info")
+    opts = OPTS
     solve = jax.jit(make_solver(hp.make_hkd_fns(), opts))
     s = solve(plan, pen, x0, Xb, Ub)
     return s, plan, meta
@@ -94,7 +90,7 @@ def test_stance_feet_stationary(solved):
 
 def test_single_shooting_mode_runs():
     plan, pen, x0, Xb, Ub, _ = build(plan_dur=0.3)
-    opts = load_solver_options(f"{REF_SETTINGS}/ddp_setting.info")
+    opts = OPTS
     import dataclasses
     opts = dataclasses.replace(opts, MS=False, max_AL_iter=2,
                                max_DDP_iter=3)
@@ -113,7 +109,7 @@ def test_parallel_riccati_end_to_end():
     """Associative-scan Riccati sweep produces the same solve as the
     sequential reverse scan."""
     plan, pen, x0, Xb, Ub, _ = build(plan_dur=0.3)
-    opts = load_solver_options(f"{REF_SETTINGS}/ddp_setting.info")
+    opts = OPTS
     s1 = jax.jit(make_solver(hp.make_hkd_fns(), opts,
                              parallel_riccati=False))(plan, pen, x0, Xb, Ub)
     s2 = jax.jit(make_solver(hp.make_hkd_fns(), opts,
@@ -127,10 +123,10 @@ def test_parallel_riccati_end_to_end():
 def test_trajectory_logging(solved, tmp_path):
     """Reference-format text logs round-trip (HSDDP_Utils.h:81-142
     analogue)."""
-    from cafempc_tpu.utils.traj_logging import log_trajectory_sequence, \
+    from cafempc.utils.traj_logging import log_trajectory_sequence, \
         load_log
     s, plan, meta = solved
-    import cafempc_tpu.solver.plan as planmod
+    import cafempc.solver.plan as planmod
     log_trajectory_sequence(str(tmp_path), s, plan)
     X = load_log(str(tmp_path), "state_log.txt")
     U = load_log(str(tmp_path), "control_log.txt")
@@ -146,7 +142,7 @@ def test_gather_reset_matches_masked(solved):
     == the mask-everywhere default, end to end."""
     s_ref, plan, meta = solved
     plan_, pen, x0, Xb, Ub, _ = build()
-    opts = load_solver_options(f"{REF_SETTINGS}/ddp_setting.info")
+    opts = OPTS
     solve_g = jax.jit(make_solver(hp.make_hkd_fns(), opts, max_resets=16))
     s_g = solve_g(plan_, pen, x0, Xb, Ub)
     np.testing.assert_allclose(np.asarray(s_g.traj.Xbar),
@@ -165,7 +161,7 @@ def test_sequential_ls_matches_parallel(solved):
     trajectories (MultiPhaseDDP.cpp:95-133 semantics)."""
     s_ref, plan, meta = solved
     plan_, pen, x0, Xb, Ub, _ = build()
-    opts = load_solver_options(f"{REF_SETTINGS}/ddp_setting.info")
+    opts = OPTS
     solve_seq = jax.jit(make_solver(hp.make_hkd_fns(), opts,
                                     parallel_line_search=False))
     s_seq = solve_seq(plan_, pen, x0, Xb, Ub)

@@ -16,12 +16,10 @@ boundaries (bound has flight phases; pace has staggered two-leg phases).
 import numpy as np
 import pytest
 
-from cafempc_tpu.problems import hkd_problem as hp
-from cafempc_tpu.reference.quad_reference import (QuadReference,
-                                                  load_quad_reference)
-from cafempc_tpu.runtime.warm_start import time_aligned_warm_start
-
-REF_DATA = "/root/reference/Reference/Data"
+from cafempc.data import hkd_reference
+from cafempc.problems import hkd_problem as hp
+from cafempc.reference.quad_reference import QuadReference
+from cafempc.runtime.warm_start import time_aligned_warm_start
 
 
 def _phase_based_warm_start(old_meta, old_t0, oXb, oUb,
@@ -61,9 +59,7 @@ def _phase_based_warm_start(old_meta, old_t0, oXb, oUb,
 
 
 def _plan_sequence(gait, n_steps, plan_dur=0.5):
-    ref = load_quad_reference(f"{REF_DATA}/{gait}/quad_reference.csv",
-                              reorder=True)
-    qr = QuadReference(ref)
+    qr = QuadReference(hkd_reference(gait))
     qr.initialize(plan_dur)
     cfg = hp.HKDConfig(plan_duration=plan_dur)
     dt_mpc = cfg.nsteps_between_mpc * cfg.dt_sim

@@ -7,8 +7,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cafempc_tpu.parallel.knot_riccati import (knot_mesh,
-                                               sharded_riccati_GH)
+from cafempc.parallel.knot_riccati import (knot_mesh,
+                                           sharded_riccati_GH)
 
 
 def _sequential_GH(A, B, lx, lu, lxx, luu, lux, phix, phixx, defect, w,
@@ -156,19 +156,16 @@ def test_knot_sharded_solver_matches_vmap():
     if len(jax.devices()) < 8:
         pytest.skip("needs the 8-device virtual CPU mesh")
     import jax.numpy as jnp
-    from cafempc_tpu.models import hkd
-    from cafempc_tpu.parallel.mesh import (make_batched_solver, replicate,
-                                           scenario_knot_mesh, shard_batch)
-    from cafempc_tpu.problems import hkd_problem as hp
-    from cafempc_tpu.reference.quad_reference import (QuadReference,
-                                                      load_quad_reference)
-    from cafempc_tpu.solver.options import SolverOptions
-    from cafempc_tpu.solver.plan import host_plan_to_device
+    from cafempc.models import hkd
+    from cafempc.parallel.mesh import (make_batched_solver, replicate,
+                                       scenario_knot_mesh, shard_batch)
+    from cafempc.problems import hkd_problem as hp
+    from cafempc.data import hkd_reference
+    from cafempc.reference.quad_reference import QuadReference
+    from cafempc.solver.options import SolverOptions
+    from cafempc.solver.plan import host_plan_to_device
 
-    ref = load_quad_reference(
-        "/root/reference/Reference/Data/bound/quad_reference.csv",
-        reorder=True)
-    qr = QuadReference(ref)
+    qr = QuadReference(hkd_reference("bound"))
     qr.initialize(0.3)
     cfg = hp.HKDConfig(plan_duration=0.3, n_steps_max=40)
     plan_np, pen_np, Xbar0, Ubar0, meta = hp.build_hkd_plan(qr, cfg)

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from cafempc_tpu.problems import loco_problem as lp
-from cafempc_tpu.problems import mhpc_problem as mp
+from cafempc.problems import loco_problem as lp
+from cafempc.problems import mhpc_problem as mp
 
 
 def test_loco_config_loads_reference_settings():
@@ -73,8 +73,8 @@ def test_joint_speed_limit_flag():
     default, +-20 rad/s on qJd when armed."""
     import jax
     import jax.numpy as jnp
-    from cafempc_tpu.reference.quad_reference import (QuadReference,
-                                                      load_quad_reference)
+    from cafempc.reference.quad_reference import (QuadReference,
+                                                  load_quad_reference)
     ref = load_quad_reference(
         "/root/reference/Reference/Data/bound/quad_reference.csv")
     qr = QuadReference(ref)

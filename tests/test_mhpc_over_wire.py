@@ -9,14 +9,14 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from cafempc_tpu.comms import lcm_wire as w
-from cafempc_tpu.comms.udpm import LCMEndpoint
-from cafempc_tpu.problems import mhpc_problem as mp
-from cafempc_tpu.reference.quad_reference import (QuadReference,
-                                                  load_quad_reference,
-                                                  wb_state_ref_at)
-from cafempc_tpu.runtime.mhpc_runtime import MHPCRuntime
-from cafempc_tpu.solver.options import SolverOptions
+from cafempc.comms import lcm_wire as w
+from cafempc.comms.udpm import LCMEndpoint
+from cafempc.problems import mhpc_problem as mp
+from cafempc.reference.quad_reference import (QuadReference,
+                                              load_quad_reference,
+                                              wb_state_ref_at)
+from cafempc.runtime.mhpc_runtime import MHPCRuntime
+from cafempc.solver.options import SolverOptions
 
 GAIT = "/root/reference/Reference/Data/bound/quad_reference.csv"
 

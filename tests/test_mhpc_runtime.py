@@ -10,13 +10,13 @@ import dataclasses
 import jax.numpy as jnp
 import numpy as np
 
-from cafempc_tpu.comms import lcm_wire as w
-from cafempc_tpu.problems import mhpc_problem as mp
-from cafempc_tpu.reference.quad_reference import (QuadReference,
-                                                  load_quad_reference,
-                                                  wb_state_ref_at)
-from cafempc_tpu.runtime.mhpc_runtime import MHPCRuntime
-from cafempc_tpu.solver.options import load_solver_options
+from cafempc.comms import lcm_wire as w
+from cafempc.problems import mhpc_problem as mp
+from cafempc.reference.quad_reference import (QuadReference,
+                                              load_quad_reference,
+                                              wb_state_ref_at)
+from cafempc.runtime.mhpc_runtime import MHPCRuntime
+from cafempc.solver.options import load_solver_options
 
 REF = "/root/reference"
 

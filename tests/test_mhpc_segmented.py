@@ -12,12 +12,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cafempc_tpu.problems import mhpc_problem as mp
-from cafempc_tpu.reference.quad_reference import (QuadReference,
-                                                  load_quad_reference,
-                                                  wb_state_ref_at)
-from cafempc_tpu.solver.hsddp import make_solver
-from cafempc_tpu.solver.options import load_solver_options
+from cafempc.problems import mhpc_problem as mp
+from cafempc.reference.quad_reference import (QuadReference,
+                                              load_quad_reference,
+                                              wb_state_ref_at)
+from cafempc.solver.hsddp import make_solver
+from cafempc.solver.options import load_solver_options
 
 REF = "/root/reference"
 
@@ -31,7 +31,7 @@ def small_problem():
     cfg = mp.MHPCConfig(plan_dur_wb=0.1, plan_dur_srb=0.2,
                         n_steps_max=24, wb_block=16)
     plan_np, pen_np, Xbar0, Ubar0, meta = mp.build_mhpc_plan(qr, cfg)
-    from cafempc_tpu.solver.plan import host_plan_to_device
+    from cafempc.solver.plan import host_plan_to_device
     plan = host_plan_to_device(plan_np, dtype=jnp.float64)
     pen = jax.tree.map(lambda a: jnp.asarray(np.asarray(a), jnp.float64),
                        pen_np)

@@ -6,20 +6,18 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from cafempc_tpu.comms import lcm_wire as w
-from cafempc_tpu.comms.udpm import LCMEndpoint, UDPMulticast
-from cafempc_tpu.models import hkd
-from cafempc_tpu.problems import hkd_problem as hp
-from cafempc_tpu.reference.quad_reference import (QuadReference,
-                                                  load_quad_reference)
-from cafempc_tpu.runtime.mpc import HKDMPCRuntime
-from cafempc_tpu.solver.options import SolverOptions
-
-GAIT = "/root/reference/Reference/Data/bound/quad_reference.csv"
+from cafempc.comms import lcm_wire as w
+from cafempc.comms.udpm import LCMEndpoint, UDPMulticast
+from cafempc.data import hkd_reference
+from cafempc.models import hkd
+from cafempc.problems import hkd_problem as hp
+from cafempc.reference.quad_reference import QuadReference
+from cafempc.runtime.mpc import HKDMPCRuntime
+from cafempc.solver.options import SolverOptions
 
 
 def _make_runtime():
-    qr = QuadReference(load_quad_reference(GAIT, reorder=True))
+    qr = QuadReference(hkd_reference("bound"))
     qr.initialize(0.2)
     cfg = hp.HKDConfig(plan_duration=0.2, n_steps_max=24)
     opts = SolverOptions(max_AL_iter=2, max_DDP_iter=2,

@@ -1,35 +1,25 @@
 """Closed-loop HKD-MPC test: repeated update()+solve() cycles re-feeding
 the solver its own predicted state — the analogue of the reference's
 testTrajOptInLoop.cpp harness."""
-import dataclasses
-
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cafempc_tpu.models import hkd
-from cafempc_tpu.problems import hkd_problem as hp
-from cafempc_tpu.reference.quad_reference import (QuadReference,
-                                                  load_quad_reference)
-from cafempc_tpu.runtime.mpc import HKDMPCRuntime
-from cafempc_tpu.solver.options import load_solver_options
-
-REF_DATA = "/root/reference/Reference/Data"
-REF_SETTINGS = "/root/reference/HKDMPC/settings"
+from cafempc.data import hkd_reference
+from cafempc.models import hkd
+from cafempc.problems import hkd_problem as hp
+from cafempc.reference.quad_reference import QuadReference
+from cafempc.runtime.mpc import HKDMPCRuntime
+from cafempc.solver.options import SolverOptions
 
 
 @pytest.mark.parametrize("gait", ["pace"])
 def test_closed_loop_mpc(gait):
-    ref = load_quad_reference(f"{REF_DATA}/{gait}/quad_reference.csv",
-                              reorder=True)
-    qr = QuadReference(ref)
+    qr = QuadReference(hkd_reference(gait))
     qr.initialize(0.6)
     cfg = hp.HKDConfig()
-    cfg = hp.load_hkd_constraint_params(
-        f"{REF_SETTINGS}/constraint_params.info", cfg)
-    opts = load_solver_options(f"{REF_SETTINGS}/ddp_setting.info")
-    opts = dataclasses.replace(opts, max_DDP_iter=6, max_AL_iter=3,
-                               max_DDP_iter_runtime=1, max_AL_iter_runtime=2)
+    opts = SolverOptions(max_DDP_iter=6, max_AL_iter=3,
+                         max_DDP_iter_runtime=1, max_AL_iter_runtime=2)
     rt = HKDMPCRuntime(qr, cfg, opts)
 
     body = np.zeros(12)
@@ -77,21 +67,18 @@ def test_intermediate_trajectory_channel():
     import numpy as np
     import jax.numpy as jnp
     import pytest
-    from cafempc_tpu.comms import lcm_wire as w
-    from cafempc_tpu.models import hkd
-    from cafempc_tpu.problems import hkd_problem as hp
-    from cafempc_tpu.reference.quad_reference import (QuadReference,
-                                                      load_quad_reference)
-    from cafempc_tpu.solver.options import SolverOptions
+    from cafempc.comms import lcm_wire as w
+    from cafempc.models import hkd
+    from cafempc.problems import hkd_problem as hp
+    from cafempc.reference.quad_reference import QuadReference
+    from cafempc.solver.options import SolverOptions
     try:
-        from cafempc_tpu.comms.udpm import LCMEndpoint
+        from cafempc.comms.udpm import LCMEndpoint
         server_ep = LCMEndpoint()
         client_ep = LCMEndpoint()
     except OSError:
         pytest.skip("multicast sockets unavailable")
-    qr = QuadReference(load_quad_reference(
-        "/root/reference/Reference/Data/bound/quad_reference.csv",
-        reorder=True))
+    qr = QuadReference(hkd_reference("bound"))
     qr.initialize(0.2)
     cfg = hp.HKDConfig(plan_duration=0.2, n_steps_max=24)
     opts = SolverOptions(max_AL_iter=2, max_DDP_iter=1)

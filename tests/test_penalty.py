@@ -3,7 +3,7 @@ reference implementations (ConstraintsBase.h formulas)."""
 import jax.numpy as jnp
 import numpy as np
 
-from cafempc_tpu.solver import penalty
+from cafempc.solver import penalty
 
 
 def naive_reb_cost(g, delta, eps, active):

@@ -13,18 +13,18 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cafempc_tpu.models import hkd, wbm
-from cafempc_tpu.problems import hkd_problem as hp
-from cafempc_tpu.problems import mhpc_problem as mp
-from cafempc_tpu.reference.quad_reference import (QuadReference,
-                                                  load_quad_reference,
-                                                  wb_state_ref_at)
-from cafempc_tpu.runtime.mpc import HKDMPCRuntime
-from cafempc_tpu.runtime.mhpc_runtime import MHPCRuntime
-from cafempc_tpu.solver.options import load_solver_options
+from cafempc.data import hkd_reference
+from cafempc.models import hkd, wbm
+from cafempc.problems import hkd_problem as hp
+from cafempc.problems import mhpc_problem as mp
+from cafempc.reference.quad_reference import (QuadReference,
+                                              load_quad_reference,
+                                              wb_state_ref_at)
+from cafempc.runtime.mpc import HKDMPCRuntime
+from cafempc.runtime.mhpc_runtime import MHPCRuntime
+from cafempc.solver.options import SolverOptions, load_solver_options
 
 REF_DATA = "/root/reference/Reference/Data"
-REF_SETTINGS = "/root/reference/HKDMPC/settings"
 
 
 def test_hkd_push_recovery():
@@ -40,17 +40,11 @@ def test_hkd_push_recovery():
     recovery case is covered closed-loop on the cascaded MHPC problem
     below (test_mhpc_push_recovery), where torques are the controls and
     the plant has full whole-body dynamics authority."""
-    ref = load_quad_reference(f"{REF_DATA}/pace/quad_reference.csv",
-                              reorder=True)
-    qr = QuadReference(ref)
+    qr = QuadReference(hkd_reference("pace"))
     qr.initialize(0.6)
     cfg = hp.HKDConfig()
-    cfg = hp.load_hkd_constraint_params(
-        f"{REF_SETTINGS}/constraint_params.info", cfg)
-    opts = load_solver_options(f"{REF_SETTINGS}/ddp_setting.info")
-    opts = dataclasses.replace(opts, max_DDP_iter=6, max_AL_iter=3,
-                               max_DDP_iter_runtime=1,
-                               max_AL_iter_runtime=2)
+    opts = SolverOptions(max_DDP_iter=6, max_AL_iter=3,
+                         max_DDP_iter_runtime=1, max_AL_iter_runtime=2)
     rt = HKDMPCRuntime(qr, cfg, opts)
 
     body = np.zeros(12)

@@ -6,7 +6,7 @@ f64 solutions (tools/freeze_goldens.py).  These tests assert the current
 solver reproduces them:
 
   * f64 default path: near-exact (guards against semantic regressions);
-  * f32 path (the TPU bench precision) with gather-reset: within float
+  * f32 path (the bench precision) with gather-reset: within float
     tolerance on states/controls and cost.
 """
 import dataclasses
@@ -17,12 +17,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cafempc_tpu.problems import hkd_problem as hp
-from cafempc_tpu.solver.hsddp import make_solver
-from cafempc_tpu.solver.options import load_solver_options
-from cafempc_tpu.solver.plan import host_plan_to_device
+from cafempc.problems import hkd_problem as hp
+from cafempc.solver.hsddp import make_solver
+from cafempc.solver.options import load_solver_options
+from cafempc.solver.plan import host_plan_to_device
 
-from tests.test_hkd_solver import build, REF_SETTINGS
+from tests.test_hkd_solver import OPTS, build
 
 
 def _golden(fixtures_dir, name):
@@ -35,8 +35,7 @@ def _golden(fixtures_dir, name):
 def test_hkd_bound_f64_matches_golden(fixtures_dir):
     g = _golden(fixtures_dir, "hkd_bound")
     plan, pen, x0, Xb, Ub, meta = build()
-    opts = load_solver_options(f"{REF_SETTINGS}/ddp_setting.info")
-    s = jax.jit(make_solver(hp.make_hkd_fns(), opts))(plan, pen, x0, Xb, Ub)
+    s = jax.jit(make_solver(hp.make_hkd_fns(), OPTS))(plan, pen, x0, Xb, Ub)
     np.testing.assert_allclose(np.asarray(s.traj.Xbar), g["Xbar"],
                                rtol=1e-9, atol=1e-10)
     np.testing.assert_allclose(np.asarray(s.traj.Ubar), g["Ubar"],
@@ -46,10 +45,9 @@ def test_hkd_bound_f64_matches_golden(fixtures_dir):
 
 
 def test_hkd_bound_f32_within_tolerance(fixtures_dir, tmp_path):
-    """The TPU bench configuration (f32 end to end, x64 OFF, gather-reset)
+    """The bench configuration (f32 end to end, x64 OFF, gather-reset)
     against the f64 golden: states to 5e-3, cost to 0.2%.  Runs in a
-    subprocess because the bench numerics are defined with x64 disabled
-    (module constants take their dtype at import)."""
+    subprocess so that x64 is off from the start, as in the bench."""
     import subprocess
     import sys
     g = _golden(fixtures_dir, "hkd_bound")
@@ -61,17 +59,15 @@ sys.path.insert(0, {repr(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))})
 import jax
 jax.config.update("jax_platforms", "cpu")
-jax.config.update("jax_compilation_cache_dir", {repr(os.path.join(
-    os.path.dirname(os.path.abspath(__file__)), ".jax_cache_f32"))})
+from cafempc.utils.platform import enable_compile_cache
+enable_compile_cache()
 import jax.numpy as jnp
 import numpy as np
-from tests.test_hkd_solver import build, REF_SETTINGS
-from cafempc_tpu.problems import hkd_problem as hp
-from cafempc_tpu.solver.hsddp import make_solver
-from cafempc_tpu.solver.options import load_solver_options
+from tests.test_hkd_solver import OPTS, build
+from cafempc.problems import hkd_problem as hp
+from cafempc.solver.hsddp import make_solver
 plan, pen, x0, Xb, Ub, meta = build()
-opts = load_solver_options(f"{{REF_SETTINGS}}/ddp_setting.info")
-s = jax.jit(make_solver(hp.make_hkd_fns(), opts, max_resets=16))(
+s = jax.jit(make_solver(hp.make_hkd_fns(), OPTS, max_resets=16))(
     plan, pen, x0, Xb, Ub)
 np.savez({repr(str(out))}, Xbar=np.asarray(s.traj.Xbar),
          cost=np.asarray(s.cost),
@@ -91,8 +87,8 @@ np.savez({repr(str(out))}, Xbar=np.asarray(s.traj.Xbar),
 
 def test_mhpc_trot_f64_matches_golden(fixtures_dir):
     g = _golden(fixtures_dir, "mhpc_trot")
-    from cafempc_tpu.problems import mhpc_problem as mp
-    from cafempc_tpu.reference.quad_reference import (
+    from cafempc.problems import mhpc_problem as mp
+    from cafempc.reference.quad_reference import (
         QuadReference, load_quad_reference, wb_state_ref_at)
     REF = "/root/reference"
     ref = load_quad_reference(
@@ -128,7 +124,7 @@ test_mhpc_trot_f64_matches_golden = pytest.mark.slow(
 @pytest.mark.slow
 def test_barrel_roll_f64_matches_golden(fixtures_dir):
     g = _golden(fixtures_dir, "barrel_roll")
-    from cafempc_tpu.problems import barrel_roll as br
+    from cafempc.problems import barrel_roll as br
     SETTINGS = "/root/reference/MHPC/MHPC-Trajopt/BarrelRoll/setting"
     plan_np, pen_np, Xbar0, Ubar0, meta = br.build_barrel_roll_plan(
         SETTINGS)

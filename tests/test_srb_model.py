@@ -6,7 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cafempc_tpu.models import srb
+from cafempc.models import srb
 
 TOL = 1e-10
 

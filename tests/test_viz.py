@@ -4,7 +4,7 @@ import os
 import numpy as np
 import pytest
 
-from cafempc_tpu.viz import plots
+from cafempc.viz import plots
 
 
 class _FakeInfo:

@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cafempc_tpu.models import rbda, wbm, wb_lane as wl
+from cafempc.models import rbda, wbm, wb_lane as wl
 
 
 @pytest.fixture(scope="module")

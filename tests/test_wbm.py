@@ -8,7 +8,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cafempc_tpu.models import rbda, wbm
+from cafempc.models import rbda, wbm
 
 TOL = 1e-10
 

@@ -1,34 +1,28 @@
 #!/usr/bin/env python3
 """Print solver iteration telemetry for one bench-config batched solve:
-how many regularization retries / line-search trials actually run."""
+how many regularization retries / line-search trials actually run.
+
+Run from the repository root: python tools/probe_iters.py
+"""
 import os as _os, sys as _sys
 _sys.path.insert(0, _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))))
 
-import os
-
 import jax
-import jax.numpy as jnp
 import numpy as np
 
 jax.config.update("jax_default_matmul_precision", "highest")
-try:
-    jax.devices()
-except RuntimeError:
-    jax.config.update("jax_platforms", "")
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.join(os.path.dirname(os.path.dirname(
-                      os.path.abspath(__file__))), ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 2)
 
 import bench as B
+from cafempc.utils.platform import enable_compile_cache
 
-solve_b, plan, pen_b, x0_b, Xb_b, Ub_b, metric = B.build_bench_setup()
+enable_compile_cache()
+solve_b, plan, pen_b, x0_b, Xb_b, Ub_b = B.build_bench_setup()
 s = solve_b(plan, pen_b, x0_b, Xb_b, Ub_b)
 jax.block_until_ready(s)
 it = np.asarray(s.info.iters)
 reg = np.asarray(s.info.reg_iters)
 ls = np.asarray(s.info.ls_iters)
+print("device:", jax.devices()[0].platform, jax.devices()[0].device_kind)
 print("iters      min/med/max:", it.min(), int(np.median(it)), it.max())
 print("reg_iters  min/med/max:", reg.min(), int(np.median(reg)), reg.max())
 print("ls_iters   min/med/max:", ls.min(), int(np.median(ls)), ls.max())
